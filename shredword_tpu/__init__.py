@@ -1,10 +1,10 @@
-"""shredword_tpu — TPU-native BPE tokenizer/trainer framework.
+"""shredword_tpu — BPE/Unigram tokenizer trainer framework on JAX.
 
-Capabilities of shivendrra/shredword, redesigned TPU-first:
+Capabilities of shivendrra/shredword, redesigned for an accelerator:
   - ``BPETrainer`` — reference-parity training API (trainer.py:5-39) with
     the merge loop running on device inside ``lax.while_loop``
   - ``Tokenizer`` — the encode/decode/save/load the reference stubs out
-    (base.py:107-109), CPU-native and TPU batch backends
+    (base.py:107-109), CPU-native and device batch backends
   - ``shredword_tpu.parallel`` — data-parallel sharded training over a
     ``jax.sharding.Mesh`` (greenfield; the reference is single-threaded)
   - both reference model formats (binary triples + "shredword v1" text)

@@ -35,12 +35,13 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--unk-id", type=int, default=-1)
     p.add_argument("--coverage", type=float, default=0.995)
     p.add_argument("--min-pair-freq", type=int, default=2000)
-    p.add_argument("--backend", choices=("tpu", "cpu"), default="tpu")
+    p.add_argument("--backend", choices=("device", "cpu"),
+                   default="device")
     p.add_argument("--engine", choices=("auto", "hist", "giant", "flat"),
                    default="auto",
-                   help="TPU merge-loop engine (auto routes by vocab: "
-                        "fused VMEM kernel <= 4096, giant HBM table "
-                        "<= 32768, flat beyond)")
+                   help="device merge-loop engine (hist and giant both "
+                        "name the pair-table engine, vocab <= 32768; "
+                        "auto routes by device and vocab)")
     p.add_argument("--tie-break", choices=("lex", "faithful"),
                    default="lex")
     p.add_argument("--max-merges", type=int, default=None)
@@ -92,8 +93,13 @@ def main(argv: list[str] | None = None) -> int:
         rc = daemon.run_client(argv)
         if rc is not None:
             return rc
-        print("[warn] daemon unreachable; running locally",
+        # Running locally could open the device while a daemon that is
+        # still starting holds it; fail instead.
+        print("error: SHREDWORD_DAEMON=1 but the daemon could not be "
+              "reached or started; run `shredword-tpu daemon status`, or "
+              "unset SHREDWORD_DAEMON to run this command in-process",
               file=sys.stderr)
+        return 1
 
     ap = argparse.ArgumentParser(prog="shredword_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -102,7 +108,7 @@ def main(argv: list[str] | None = None) -> int:
 
     pe = sub.add_parser("encode", help="encode text to token ids")
     _add_io(pe)
-    pe.add_argument("--backend", choices=("tpu", "cpu"), default="cpu")
+    pe.add_argument("--backend", choices=("device", "cpu"), default="cpu")
 
     pd = sub.add_parser("decode", help="decode token ids to text")
     _add_io(pd)
@@ -124,7 +130,8 @@ def main(argv: list[str] | None = None) -> int:
     pu.add_argument("--seed-size", type=int, default=100_000)
     pu.add_argument("--max-piece-len", type=int, default=15)
     pu.add_argument("--em-rounds", type=int, default=2)
-    pu.add_argument("--backend", choices=("tpu", "cpu"), default="tpu")
+    pu.add_argument("--backend", choices=("device", "cpu"),
+                    default="device")
     pu.add_argument("--shards", type=int, default=0,
                     help="data-parallel word shards over the device "
                          "mesh (0 = single device)")

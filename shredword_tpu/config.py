@@ -23,21 +23,22 @@ class BPEConfig:
     character_coverage: float = 0.995
     min_pair_freq: int = 2000
 
-    # TPU-trainer knobs (no reference counterpart)
+    # device-trainer knobs (no reference counterpart)
     merges_per_device_call: int = 64    # on-device merge steps per host loop
                                         # (smaller chunks let re-compaction
                                         # shrink the stream sooner; dispatch
                                         # overhead is ~ms per chunk)
     compact_every: int = 64             # host-side re-compactions (steps)
     tie_break: str = "lex"              # "lex" | "faithful" (CPU selector)
-    backend: str = "tpu"                # "tpu" | "cpu"
+    backend: str = "device"             # "device" (JAX's default device)
+                                        # | "cpu" (native faithful engine)
     engine: str = "auto"                # "auto" | "hist" | "giant" |
-                                        # "flat" — TPU merge-loop engine
-                                        # (hist = fused Pallas kernel +
-                                        # pair table, routes to giant
-                                        # above vocab 4096; giant = the
-                                        # HBM-table engine explicitly;
-                                        # flat = sort-based stream)
+                                        # "flat" — device merge-loop
+                                        # engine (hist and giant both
+                                        # name the pair-table engine,
+                                        # vocab <= 32768; flat = the
+                                        # sort-based stream; auto routes
+                                        # by device and vocab)
     checkpoint_path: str | None = None  # mid-training checkpoint file
     checkpoint_every: int = 0           # merges between checkpoints (0=off)
     shards: int = 0                     # data-parallel corpus shards over a
@@ -64,7 +65,7 @@ class BPEConfig:
             raise ConfigError("min_pair_freq must be >= 0")
         if self.tie_break not in ("lex", "faithful"):
             raise ConfigError(f"unknown tie_break {self.tie_break!r}")
-        if self.backend not in ("tpu", "cpu"):
+        if self.backend not in ("device", "cpu"):
             raise ConfigError(f"unknown backend {self.backend!r}")
         if self.engine not in ("auto", "hist", "giant", "flat"):
             raise ConfigError(f"unknown engine {self.engine!r}")
@@ -90,7 +91,7 @@ class UnigramConfig:
     max_word_len: int = 32
     shrink_factor: float = 0.75
     num_em_rounds: int = 2
-    backend: str = "tpu"
+    backend: str = "device"
 
     def validate(self) -> "UnigramConfig":
         if self.target_vocab_size < 1:
@@ -102,6 +103,6 @@ class UnigramConfig:
                               "(reference MAX_SUBWORD_LEN cap)")
         if self.max_word_len < self.max_piece_len:
             raise ConfigError("max_word_len must be >= max_piece_len")
-        if self.backend not in ("tpu", "cpu"):
+        if self.backend not in ("device", "cpu"):
             raise ConfigError(f"unknown backend {self.backend!r}")
         return self

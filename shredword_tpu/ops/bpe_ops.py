@@ -1,6 +1,6 @@
-"""Core TPU ops for BPE training — pure JAX functions over flat arrays.
+"""Core device ops for BPE training — pure JAX functions over flat arrays.
 
-TPU-native data model (replaces the reference's linked lists / chained
+Data model (replaces the reference's linked lists / chained
 hash maps / heap, SURVEY.md §7):
 
   tokens  : int32[N]  token ids of all unique words, concatenated
@@ -83,7 +83,7 @@ def pair_counts_sorted(state: CorpusState, unk_id):
     have length N; entries beyond the number of distinct pairs are
     (INT32_MAX, INT32_MAX, 0).  Segments are sorted ascending by (a, b),
     so argmax over seg_count picks the lexicographically smallest pair on
-    ties (the documented "lex" tie-break of the TPU fast path).
+    ties (the documented "lex" tie-break of the device engines).
     """
     t = state.tokens
     n = t.shape[0]
@@ -119,9 +119,8 @@ def pair_totals_packed(state: CorpusState, unk_id):
     and invalid positions carry key == INT32_MAX.
 
     Only valid when every live token id < PACK_LIMIT.  Scatter-free:
-    sort + cumsum + prefix-max + one gather (TPU scatters serialize;
-    this path replaces segment_sum + two scatters of pair_counts_sorted
-    and is ~2x faster at 1M elements).
+    sort + cumsum + prefix-max + one gather (this path replaces
+    segment_sum + two scatters of pair_counts_sorted).
     """
     t = state.tokens
     n = t.shape[0]
@@ -207,8 +206,7 @@ def apply_merge(state: CorpusState, a, b, new_id) -> tuple[CorpusState, jax.Arra
     keep = (~killed) & (idx < state.length)
 
     # stream compaction as ONE stable 4-operand sort (kept elements keep
-    # their relative order; killed/padding sink to the tail) — TPU
-    # scatters serialize, a sort does not.
+    # their relative order; killed/padding sink to the tail)
     skey = jnp.where(keep, idx, idx + n)
     _, tokens, word_id, wcount = jax.lax.sort(
         (skey, t, state.word_id, state.wcount), num_keys=1)
@@ -245,7 +243,7 @@ def train_loop(ts: TrainState, unk_id, min_pair_freq, *, target_merges: int,
     """Run up to max_steps greedy merges fully on device.
 
     One device dispatch executes many merges (amortizing host round trips
-    — the TPU answer to the reference's merge batching, bpe.cpp:615-629,
+    — the device answer to the reference's merge batching, bpe.cpp:615-629,
     but with exact per-merge count updates so the merge sequence is the
     strict greedy one).
     """

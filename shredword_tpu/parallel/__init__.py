@@ -3,7 +3,7 @@ jax.sharding.Mesh.
 
 Greenfield component: the reference is strictly single-threaded
 (SURVEY.md §2.D); corpus sharding + cross-shard count reduction replace
-the absent NCCL/MPI layer with XLA collectives over ICI.
+the absent NCCL/MPI layer with XLA collectives.
 """
 
 from . import multihost, unigram

@@ -1,48 +1,41 @@
 """Table-sharded giant-vocab training: vocab to 65536 across a mesh.
 
-The single-chip engines cap at the pair table a chip can hold: the
-fused VMEM engines at v <= 4096 and the HBM giant engine at v <= 32768
-(a dense [V, V] int32 table is 17 GB at V = 64k — more than one chip's
-HBM).  This engine shards BOTH axes of the problem over the mesh:
+The single-device table engine caps at v <= 32768 (ops/bpe_hist.py;
+a dense [V, V] int32 table is 4.3 GB there and 17 GB at V = 64k).  This
+engine shards BOTH axes of the problem over the mesh:
 
   corpus  [L, W] int32 by-word layout, words sharded over `axis`
-          (the same no-halo word sharding as parallel/hist.py; the
-          corpus is int32 because merged ids exceed int16 past 32k)
-  table   [V, V] int32 sharded by ROWS: chip i owns global rows
-          [i*V/n, (i+1)*V/n) — 2.1 GB per chip at V = 64k, n = 8
+          (the same no-halo word sharding as parallel/hist.py)
+  table   [V, V] int32 sharded by ROWS: device i owns global rows
+          [i*V/n, (i+1)*V/n) — 4.3 GB per device at V = 64k, n = 4
 
 Per merge step (all inside one jitted shard_map while_loop):
 
-  1. PICK    each chip takes the lex-first argmax over its row shard;
+  1. PICK    each device takes the lex-first argmax over its row shard;
              the global winner is resolved with three int32
              collectives (pmax freq, then pmin global row among
              frequency winners, then pmin col) — this reproduces the
              exact (freq desc, row asc, col asc) tie-break of the
-             single-chip engines without 64-bit packing.
-  2. LOCAL   greedy select + merge-apply + neighbor-delta extraction
-             on the local corpus shard (pure-XLA mirror of the Pallas
-             kernels' math: parity-scan overlap rule, hole-march
-             compaction, slot accounting semantics of
-             bpe_merge_batch, reference bpe.cpp:437-470)
+             single-device engines without 64-bit packing.
+  2. LOCAL   ``bpe_hist.merge_step`` on the local corpus shard (greedy
+             select + merge + neighbor deltas, bpe_merge_batch
+             accounting, reference bpe.cpp:437-470)
   3. REDUCE  psum of the two delta vectors dl/dr int32[V] — 2*V*4
-             bytes per merge over ICI (512 KB at 64k)
-  4. APPLY   row-sharded table updates: every chip applies the column
-             a/new strips to its own rows; the chips owning rows b/new
+             bytes per merge (512 KB at 64k)
+  4. APPLY   row-sharded table updates: every device applies the column
+             a/new strips to its own rows; the devices owning rows b/new
              apply the row updates; the owner of row a zeroes the
              merged cell last (apply_hist_updates order)
 
 Conformance: merge sequences are bit-identical to the single-device
-hist/flat engines at overlapping vocab sizes (tests/test_parallel.py
+table/flat engines at overlapping vocab sizes (tests/test_parallel.py
 pattern), and shard-count-invariant by construction (integer psum).
 
 No reference counterpart exists: the reference is single-threaded C++
-(SURVEY.md §2.D); this is the TPU-native scale-out the north star
-asks for (BASELINE config 5: 8-way sharded, vocab 64k).
+(SURVEY.md §2.D); BASELINE config 5 is the sharded 64k deployment.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -51,61 +44,13 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..ops import bpe_hist
-from . import hist as _hist
 from . import train
-
-from ..ops.encode_ops import (_shift_down_rows as _shift_down,
-                              _shift_up_rows as _shift_up)
 
 INT32_MAX = jnp.iinfo(jnp.int32).max
 MAX_V = 65536
 
 
-def _select_apply(tt, a, b, new, L):
-    """Greedy left-to-right match selection + merge + hole-march
-    compaction on the [L, W] block (XLA mirror of
-    bpe_hist._select_and_apply, rolled into fori_loops to keep the
-    traced graph small).  Returns (t2, sel)."""
-    row = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 0)
-    nxt = _shift_up(tt, bpe_hist.PAD)
-    m = ((tt == a) & (nxt == b)).astype(jnp.int32)
-
-    def gbody(l, sel):                       # greedy overlap rule
-        prev = _shift_down(sel, 0)
-        return jnp.where(row == l, m * (1 - prev), sel)
-
-    sel = jax.lax.fori_loop(0, L, gbody, jnp.zeros_like(tt))
-    t2 = tt + sel * (new - tt)
-
-    def hbody(_, carry):                     # hole march
-        t2, hole = carry
-        t_dn = _shift_up(t2, bpe_hist.PAD)
-        return t2 + hole * (t_dn - t2), _shift_down(hole, 0)
-
-    t2, _ = jax.lax.fori_loop(0, L - 1, hbody,
-                              (t2, _shift_down(sel, 0)))
-    return t2, sel
-
-
-def _local_deltas(tt, sel, ww, new, unk, v):
-    """Left/right neighbor delta histograms int32[v] for the local
-    shard (bpe_merge_batch accounting, reference bpe.cpp:437-470) via
-    masked scatter-add."""
-    sel2 = _shift_down(_shift_down(sel, 0), 0)
-    t_up = _shift_down(tt, bpe_hist.PAD)
-    lval = t_up + sel2 * (new - t_up)        # earlier merge overrides
-    rval = _shift_up(_shift_up(tt, bpe_hist.PAD), bpe_hist.PAD)
-    wsel = sel * ww
-    wl = jnp.where((lval >= 0) & (lval != unk), wsel, 0)
-    wr = jnp.where((rval >= 0) & (rval != unk), wsel, 0)
-    li = jnp.where(wl > 0, lval, v).ravel()
-    ri = jnp.where(wr > 0, rval, v).ravel()
-    dl = jnp.zeros(v, jnp.int32).at[li].add(wl.ravel(), mode="drop")
-    dr = jnp.zeros(v, jnp.int32).at[ri].add(wr.ravel(), mode="drop")
-    return dl, dr
-
-
-def build_sharded_giant_loop(mesh: Mesh, v: int, L: int, W: int, *,
+def build_sharded_giant_loop(mesh: Mesh, v: int, *,
                              target_merges: int, max_steps: int,
                              axis: str = "data"):
     n_shards = mesh.devices.size
@@ -126,56 +71,40 @@ def build_sharded_giant_loop(mesh: Mesh, v: int, L: int, W: int, *,
         def body_fn(carry):
             tw, hist, merges, freqs, n_merges, done, steps = carry
             # ---- 1. pick: lex-first global argmax in 3 collectives
-            masked = jnp.where(hist >= min_pair_freq, hist, 0)
-            flat = masked.ravel()
-            lbest = jnp.argmax(flat)
-            lcnt = flat[lbest]
-            la = (lbest // v).astype(jnp.int32) + row_base
-            lb = (lbest % v).astype(jnp.int32)
+            lcnt, la, lb = bpe_hist.pick_pair(hist, min_pair_freq)
+            la = la + row_base
             cnt = jax.lax.pmax(lcnt, axis)
             a = jax.lax.pmin(jnp.where(lcnt == cnt, la, INT32_MAX), axis)
             b = jax.lax.pmin(
                 jnp.where((lcnt == cnt) & (la == a), lb, INT32_MAX),
                 axis)
 
-            def do_merge(args):
-                tw, hist, merges, freqs, n_merges = args
-                new = 256 + n_merges
-                # ---- 2. local merge + deltas
-                t2, sel = _select_apply(tw, a, b, new, L)
-                dl, dr = _local_deltas(tw, sel, wc, new, unk_id, v)
-                # ---- 3. reduce (integer: order-independent, exact)
-                dl = jax.lax.psum(dl, axis)
-                dr = jax.lax.psum(dr, axis)
-                # ---- 4. row-sharded apply (apply_hist_updates order)
-                dl_loc = jax.lax.dynamic_slice(dl, (row_base,), (rows,))
-                hist = hist.at[:, a].add(-dl_loc)
-                hist = hist.at[:, new].add(dl_loc)
-                own_b = (b >= row_base) & (b < row_base + rows)
-                own_n = (new >= row_base) & (new < row_base + rows)
-                own_a = (a >= row_base) & (a < row_base + rows)
-                clb = jnp.clip(b - row_base, 0, rows - 1)
-                cln = jnp.clip(new - row_base, 0, rows - 1)
-                cla = jnp.clip(a - row_base, 0, rows - 1)
-                hist = hist.at[clb, :].add(
-                    jnp.where(own_b, -dr, jnp.zeros_like(dr)))
-                hist = hist.at[cln, :].add(
-                    jnp.where(own_n, dr, jnp.zeros_like(dr)))
-                # merged cell zeroed LAST on the owner of row a
-                cell = hist[cla, b]
-                hist = hist.at[cla, b].add(jnp.where(own_a, -cell, 0))
-                merges = merges.at[n_merges].set(
-                    jnp.stack([a, b]).astype(jnp.int32))
-                freqs = freqs.at[n_merges].set(cnt.astype(jnp.int32))
-                return t2, hist, merges, freqs, n_merges + 1, \
-                    jnp.bool_(False)
-
-            tw, hist, merges, freqs, n_merges, done = jax.lax.cond(
-                cnt == 0,
-                lambda args: (*args, jnp.bool_(True)),
-                do_merge,
-                (tw, hist, merges, freqs, n_merges))
-            return tw, hist, merges, freqs, n_merges, done, steps + 1
+            # masked step, no lax.cond: see bpe_hist.apply_hist_updates
+            go = cnt > 0
+            new = 256 + n_merges
+            # ---- 2. local merge + deltas
+            t2, dl, dr = bpe_hist.merge_step(tw, wc, a, b, new, unk_id, v)
+            # ---- 3. reduce (integer: order-independent, exact)
+            dl = jnp.where(go, jax.lax.psum(dl, axis), 0)
+            dr = jnp.where(go, jax.lax.psum(dr, axis), 0)
+            # ---- 4. row-sharded apply (apply_hist_updates order)
+            dl_loc = jax.lax.dynamic_slice(dl, (row_base,), (rows,))
+            hist = bpe_hist.add_col(hist, a, -dl_loc)
+            hist = bpe_hist.add_col(hist, new, dl_loc)
+            own_b = (b >= row_base) & (b < row_base + rows)
+            own_n = (new >= row_base) & (new < row_base + rows)
+            own_a = go & (a >= row_base) & (a < row_base + rows)
+            clb = jnp.clip(b - row_base, 0, rows - 1)
+            cln = jnp.clip(new - row_base, 0, rows - 1)
+            cla = jnp.clip(a - row_base, 0, rows - 1)
+            hist = bpe_hist.add_row(hist, clb, jnp.where(own_b, -dr, 0))
+            hist = bpe_hist.add_row(hist, cln, jnp.where(own_n, dr, 0))
+            # merged cell zeroed LAST on the owner of row a
+            hist = bpe_hist.zero_cell(hist, cla, b, own_a)
+            merges = merges.at[n_merges].set(jnp.stack([a, b]))
+            freqs = freqs.at[n_merges].set(cnt)
+            return (jnp.where(go, t2, tw), hist, merges, freqs,
+                    n_merges + go.astype(jnp.int32), ~go, steps + 1)
 
         tw, hist, merges, freqs, n_merges, done, _ = jax.lax.while_loop(
             cond_fn, body_fn,
@@ -201,7 +130,7 @@ def sharded_giant_train(tokens: np.ndarray, word_id: np.ndarray,
                         max_steps_per_call: int = 256,
                         axis: str = "data", n_prev_merges: int = 0,
                         _cache={}):
-    """Sharded driver for vocab beyond one chip's table (v <= 65536).
+    """Sharded driver for vocab beyond one device's table (v <= 65536).
     wcount is per word.  Returns (merges, freqs) or None if the layout
     does not fit.
 
@@ -214,33 +143,31 @@ def sharded_giant_train(tokens: np.ndarray, word_id: np.ndarray,
     v = -(-v // (128 * n_shards)) * (128 * n_shards)   # whole row shards
     if v > MAX_V or unk_id >= 256:
         return None
-    c = _hist.shard_layout(tokens, word_id, wcount, n_shards)
+    c = bpe_hist.build_layout(tokens, word_id, wcount, n_shards=n_shards)
     if c is None:
         return None
-    tw32 = c.tw.astype(jnp.int32)      # merged ids exceed int16 past 32k
-    L, W = tw32.shape
     # initial pairs live in [0, 256)^2: build the small table and embed
     # into the giant table CREATED SHARDED (a replicated [64k, 64k]
-    # would be 17 GB on one chip — it must never materialize whole)
+    # would be 17 GB on one device — it must never materialize whole)
     from jax.sharding import NamedSharding
     # resume: replayed ids reach 256 + n_prev_merges; cover them all
     vi = min(v, -(-max(256 + n_prev_merges, 256) // 128) * 128)
-    small = bpe_hist.init_hist(
-        bpe_hist.HistCorpus(tw32, c.wcount), jnp.int32(unk_id), v=vi)
+    small = bpe_hist.init_hist(c, jnp.int32(unk_id), v=vi)
     embed = jax.jit(
         lambda s: jnp.zeros((v, v), jnp.int32).at[:vi, :vi].set(s),
         out_shardings=NamedSharding(mesh, P(axis, None)))
     hist = embed(small)
     st_merges = jnp.zeros((max(target_merges, 1), 2), jnp.int32)
     st_freqs = jnp.zeros(max(target_merges, 1), jnp.int32)
-    key = (train.mesh_key(mesh), v, L, W, target_merges,
-           max_steps_per_call, axis)
+    key = (train.mesh_key(mesh), v, target_merges, max_steps_per_call,
+           axis)
     if key not in _cache:
         _cache[key] = build_sharded_giant_loop(
-            mesh, v, L, W, target_merges=target_merges,
+            mesh, v, target_merges=target_merges,
             max_steps=max_steps_per_call, axis=axis)
     loop = _cache[key]
-    tw, wc, merges, freqs = tw32, c.wcount, st_merges, st_freqs
+    tw, wc = jnp.asarray(c.tw), jnp.asarray(c.wcount)
+    merges, freqs = st_merges, st_freqs
     n_merges, done = jnp.int32(n_prev_merges), jnp.bool_(False)
     while True:
         n_before = int(n_merges)

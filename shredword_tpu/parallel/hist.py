@@ -1,76 +1,39 @@
-"""Sharded histogram-engine training: the fused Pallas merge kernel on
+"""Sharded table-engine training: the table engine's merge step on
 data-parallel word shards with psum-reduced count deltas.
 
 Layout: the by-word matrix [L, W] shards along the word axis over the
 `data` mesh axis (words never span shards — no halo exchange).  Every
 merge step:
 
-  1. LOCAL  : fused kernel pass on this shard (match + select +
-              compact + slot-collapse delta histograms) -> dl, dr
-              int32[V]
-  2. REDUCE : ``psum`` of the two delta vectors over ICI (integer —
+  1. LOCAL  : ``bpe_hist.merge_step`` on this shard (match + select +
+              compact + delta vectors) -> dl, dr int32[V]
+  2. REDUCE : ``psum`` of the two delta vectors (integer —
               bit-deterministic regardless of shard order)
-  3. APPLY  : replicated hist row/col updates + argmax — identical on
-              every chip, so the chosen pair needs no broadcast
+  3. APPLY  : replicated table row/col updates + argmax — identical on
+              every device, so the chosen pair needs no broadcast
 
-The pair table is replicated (V^2 int32, a few MB); only 2·V int32 of
-deltas cross the interconnect per merge — far less than the gathered
-pair segments of the flat sharded path (train.py).
+The pair table is replicated (V^2 int32, at most 64 MB at the v <= 4096
+cap); only 2·V int32 of deltas cross the interconnect per merge — far
+less than the gathered pair segments of the flat sharded path
+(train.py).  Beyond the cap, parallel/giant.py shards the table rows.
 """
 
 from __future__ import annotations
 
-from functools import partial
-from typing import NamedTuple
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import bpe_hist
 from . import train
 
-
-class ShardedHistState(NamedTuple):
-    tw: jax.Array           # int32[L, W]  (sharded on axis 1)
-    wcount: jax.Array       # int32[1, W]  (sharded on axis 1)
-    hist: jax.Array         # int32[V, V]  (replicated)
-    merges: jax.Array       # int32[M_max, 2]
-    merge_freqs: jax.Array  # int32[M_max]
-    n_merges: jax.Array     # int32
-    done: jax.Array         # bool
+MAX_V = 4096
 
 
-def shard_layout(tokens: np.ndarray, word_id: np.ndarray,
-                 wcount: np.ndarray, n_shards: int,
-                 max_word_len: int = 64):
-    """Build the [L, W] layout with W a multiple of n_shards * CHUNK
-    (pad columns carry weight 0)."""
-    c = bpe_hist.build_layout(tokens, word_id, wcount, max_word_len,
-                              min_len=16)  # int16 tile floor
-    if c is None:
-        return None
-    L, W = c.tw.shape
-    unit = n_shards * bpe_hist.CHUNK
-    W2 = -(-W // unit) * unit
-    if W2 != W:
-        tw = np.full((L, W2), bpe_hist.PAD, np.int16)
-        tw[:, :W] = np.asarray(c.tw)
-        wc = np.zeros((1, W2), np.int32)
-        wc[:, :W] = np.asarray(c.wcount)
-        c = bpe_hist.HistCorpus(jnp.asarray(tw), jnp.asarray(wc))
-    return c
-
-
-def build_sharded_hist_loop(mesh: Mesh, v: int, L: int, W: int, *,
-                            target_merges: int, max_steps: int,
-                            axis: str = "data", interpret: bool = False):
-    n_shards = mesh.devices.size
-    merge_step = bpe_hist.make_merge_step(v, L, W // n_shards,
-                                          interpret=interpret)
-
+def build_sharded_hist_loop(mesh: Mesh, v: int, *, target_merges: int,
+                            max_steps: int, axis: str = "data"):
     def shard_body(tw, wc, hist, merges, freqs, n_merges, done,
                    unk_id, min_pair_freq):
         def cond_fn(carry):
@@ -80,33 +43,17 @@ def build_sharded_hist_loop(mesh: Mesh, v: int, L: int, W: int, *,
 
         def body_fn(carry):
             tw, hist, merges, freqs, n_merges, done, steps = carry
-            flat = hist.reshape(-1)
-            masked = jnp.where(flat >= min_pair_freq, flat, 0)
-            best = jnp.argmax(masked)
-            cnt = masked[best]
-            a = (best // v).astype(jnp.int32)
-            b = (best % v).astype(jnp.int32)
-
-            def do_merge(args):
-                tw, hist, merges, freqs, n_merges = args
-                new = 256 + n_merges
-                scal = jnp.stack([a, b, new, unk_id]).astype(jnp.int32)
-                t2, dl, dr, _ = merge_step(tw, wc, scal)
-                dl = jax.lax.psum(dl[:, 0], axis)
-                dr = jax.lax.psum(dr[:, 0], axis)
-                hist = bpe_hist.apply_hist_updates(hist, a, b, new, dl, dr)
-                merges = merges.at[n_merges].set(
-                    jnp.stack([a, b]).astype(jnp.int32))
-                freqs = freqs.at[n_merges].set(cnt.astype(jnp.int32))
-                return t2, hist, merges, freqs, n_merges + 1, \
-                    jnp.bool_(False)
-
-            tw, hist, merges, freqs, n_merges, done = jax.lax.cond(
-                cnt == 0,
-                lambda args: (*args, jnp.bool_(True)),
-                do_merge,
-                (tw, hist, merges, freqs, n_merges))
-            return tw, hist, merges, freqs, n_merges, done, steps + 1
+            cnt, a, b = bpe_hist.pick_pair(hist, min_pair_freq)
+            go = cnt > 0               # masked step: see apply_hist_updates
+            new = 256 + n_merges
+            t2, dl, dr = bpe_hist.merge_step(tw, wc, a, b, new, unk_id, v)
+            dl = jax.lax.psum(dl, axis)
+            dr = jax.lax.psum(dr, axis)
+            hist = bpe_hist.apply_hist_updates(hist, a, b, new, dl, dr, go)
+            merges = merges.at[n_merges].set(jnp.stack([a, b]))
+            freqs = freqs.at[n_merges].set(cnt)
+            return (jnp.where(go, t2, tw), hist, merges, freqs,
+                    n_merges + go.astype(jnp.int32), ~go, steps + 1)
 
         tw, hist, merges, freqs, n_merges, done, _ = jax.lax.while_loop(
             cond_fn, body_fn,
@@ -129,43 +76,35 @@ def sharded_hist_train(tokens: np.ndarray, word_id: np.ndarray,
                        target_merges: int, unk_id: int = -1,
                        min_pair_freq: int = 2,
                        max_steps_per_call: int = 512,
-                       axis: str = "data", interpret: bool = False,
-                       n_prev_merges: int = 0, _cache={}):
+                       axis: str = "data", n_prev_merges: int = 0,
+                       _cache={}):
     """Sharded driver.  wcount is per word.  Returns (merges, freqs)
-    or None if the layout does not fit.
+    or None if the vocab exceeds the replicated-table cap or the layout
+    does not fit.
 
     Checkpoint resume: the caller replays the first ``n_prev_merges``
     merges into ``tokens`` host-side; the loop's merge counter seeds at
     n_prev so new ids continue at 256 + n_prev (the loop derives
     new = 256 + n_merges).  Only NEW merges are returned."""
-    # Same per-shard envelope as the single-device while_loop engine
-    # (make_merge_step blocks are [L, CHUNK] + dl/dr columns in VMEM —
-    # v-independent except the [v, 1] delta columns): v <= 4096, beyond
-    # which the row-sharded giant table takes over (parallel/giant.py).
     v = -(-(256 + target_merges) // 128) * 128
-    if v > 4096:
+    if v > MAX_V:
         return None
     n_shards = mesh.devices.size
-    c = shard_layout(tokens, word_id, wcount, n_shards)
+    c = bpe_hist.build_layout(tokens, word_id, wcount, n_shards=n_shards)
     if c is None:
         return None
-    L, W = c.tw.shape
     hist = bpe_hist.init_hist(c, jnp.int32(unk_id), v=v)
-    st = ShardedHistState(
-        tw=c.tw.astype(jnp.int16), wcount=c.wcount, hist=hist,
-        merges=jnp.zeros((max(target_merges, 1), 2), jnp.int32),
-        merge_freqs=jnp.zeros(max(target_merges, 1), jnp.int32),
-        n_merges=jnp.int32(n_prev_merges), done=jnp.bool_(False))
-    key = (train.mesh_key(mesh), v, L, W, target_merges,
-           max_steps_per_call, axis, interpret)
+    key = (train.mesh_key(mesh), v, target_merges, max_steps_per_call,
+           axis)
     if key not in _cache:
         _cache[key] = build_sharded_hist_loop(
-            mesh, v, L, W, target_merges=target_merges,
-            max_steps=max_steps_per_call, axis=axis, interpret=interpret)
+            mesh, v, target_merges=target_merges,
+            max_steps=max_steps_per_call, axis=axis)
     loop = _cache[key]
-    tw, wc, hist, merges, freqs, n_merges, done = (
-        st.tw, st.wcount, st.hist, st.merges, st.merge_freqs,
-        st.n_merges, st.done)
+    tw, wc = jnp.asarray(c.tw), jnp.asarray(c.wcount)
+    merges = jnp.zeros((max(target_merges, 1), 2), jnp.int32)
+    freqs = jnp.zeros(max(target_merges, 1), jnp.int32)
+    n_merges, done = jnp.int32(n_prev_merges), jnp.bool_(False)
     while True:
         n_before = int(n_merges)
         tw, hist, merges, freqs, n_merges, done = loop(

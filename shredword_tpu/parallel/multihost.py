@@ -1,17 +1,17 @@
 """Multi-host training setup — the jax.distributed layer.
 
 The reference has no distributed code of any kind (SURVEY.md §2.D).
-This module is the TPU-native replacement for the absent NCCL/MPI
-layer: process-group initialization via ``jax.distributed`` plus a
-global mesh over every chip in the slice.  Per-merge reductions ride
-the same collectives as the single-host sharded paths (all_gather /
-psum over the `data` axis), which XLA routes over ICI within a slice
-and DCN across hosts; integer counts keep them bit-deterministic.
+This module replaces the absent NCCL/MPI layer: process-group
+initialization via ``jax.distributed`` plus a global mesh over every
+device of every process.  Per-merge reductions ride the same
+collectives as the single-host sharded paths (all_gather / psum over
+the `data` axis), which XLA hands to NCCL on GPUs; integer counts keep
+them bit-deterministic.
 
 Typical multi-host launch (one process per host):
 
     from shredword_tpu.parallel import multihost, sharded_hist_train
-    multihost.initialize()              # env-driven on TPU pods
+    multihost.initialize("host0:1234", num_processes=2, process_id=0)
     mesh = multihost.global_mesh()
     merges, freqs = sharded_hist_train(..., mesh=mesh)
 """
@@ -30,9 +30,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize the process group.
 
-    On TPU pods all three arguments resolve from the environment
-    (jax.distributed's autodetection); pass them explicitly for CPU/GPU
-    clusters or tests.  Idempotent.
+    Pass all three arguments on GPU/CPU hosts (a cluster manager that
+    jax.distributed autodetects may supply them instead).  Idempotent.
     """
     global _initialized
     if _initialized:

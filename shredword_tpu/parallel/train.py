@@ -3,19 +3,19 @@
 Per merge step (all inside one jitted ``shard_map`` + ``lax.while_loop``):
 
   1. LOCAL  : sort-based aggregation of this shard's adjacent pairs into
-              distinct (a, b, weight) segments — O(C/D log C/D) per chip
-  2. GATHER : ``all_gather`` of the aggregated segments over ICI
+              distinct (a, b, weight) segments — O(C/D log C/D) per device
+  2. GATHER : ``all_gather`` of the aggregated segments
   3. REDUCE : replicated global sort + segment-sum + argmax — identical
-              on every chip, so the chosen pair needs no broadcast; the
-              lexicographic tie-break matches the single-chip trainer
+              on every device, so the chosen pair needs no broadcast; the
+              lexicographic tie-break matches the single-device trainer
               exactly (ops/bpe_ops.py pair_counts_sorted)
   4. APPLY  : purely local parity-scan merge + compaction (words never
               span shards, so no halo exchange is needed)
 
 The reference has no distributed analog (single-threaded C++,
-SURVEY.md §2.D); this is the TPU-native replacement for the absent
-NCCL/MPI layer.  Counts are integers end-to-end, so the reduction is
-bit-deterministic regardless of shard order.
+SURVEY.md §2.D); XLA collectives (NCCL on GPUs) take the place of the
+absent NCCL/MPI layer.  Counts are integers end-to-end, so the
+reduction is bit-deterministic regardless of shard order.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def _global_best_pair(keys, vals, min_pair_freq):
 
     keys/vals: int32[D*C] gathered (packed pair key, local count) with
     key == INT32_MAX padding; returns (a, b, count) with the same lex
-    tie-break as the single-chip path.  Scatter-free: sort + cumsum +
+    tie-break as the single-device path.  Scatter-free: sort + cumsum +
     prefix-max + gather.
     """
     n = keys.shape[0]

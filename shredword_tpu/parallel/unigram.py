@@ -8,7 +8,7 @@ the single-device computation on its word subset.  Per EM round:
 
   1. LOCAL  : _fb_core on this shard's [L, W/D, K] slice -> expected
               counts float32[P], log-likelihood scalar
-  2. REDUCE : ``psum`` of counts + ll over ICI — one float32[P] vector
+  2. REDUCE : ``psum`` of counts + ll — one float32[P] vector
               per slab per round (the piece tables themselves never
               move after the initial sharded upload)
   3. M-step : replicated on host (identical logp on every shard)
@@ -19,7 +19,7 @@ collectives).
 
 The reference has no distributed analog (it never shipped a unigram
 trainer at all, pyproject.toml:8 notwithstanding); this is the
-TPU-native scale-out of the trainer the package adds.
+scale-out of the trainer the package adds.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ Two families, matching the reference's two (disconnected) tracks:
 2. **Regex** — the GPT-style patterns documented in the reference's
    pure-Python track (base.py:38-58).  The pattern *strings* are the
    behavioral contract; they are reproduced here as data with the
-   reference's own naming.
+   reference's own naming.  The GPT pattern runs on the native scanner
+   and needs no regex engine; the other patterns need the optional
+   ``regex`` package (``pip install shredword-tpu[regex]``).
 
 Special tokens are split out first (exact string match, never crossed by
 either family).
@@ -19,8 +21,7 @@ either family).
 from __future__ import annotations
 
 import functools
-
-import regex as _re
+import re
 
 # Reference patterns, verbatim from base.py:41-54 (data, not code).
 PATTERN_GPT = (
@@ -48,23 +49,28 @@ _WHITESPACE = b" \t\r\n"
 
 @functools.lru_cache(maxsize=64)
 def _compiled(pattern: str):
-    return _re.compile(pattern)
+    try:
+        import regex
+    except ImportError as e:
+        raise ImportError(
+            f"pattern {pattern!r} needs the 'regex' package (\\p{{L}} "
+            "classes and possessive quantifiers); install it with "
+            "`pip install shredword-tpu[regex]`, or use the 'gpt' pattern, "
+            "which runs on the native scanner") from e
+    return regex.compile(pattern)
 
 
 def regex_split(text: str, pattern: str = PATTERN_GPT) -> list[str]:
     """Chunking per the reference apply_regex (base.py:57-58).
 
     The GPT pattern routes through the native single-pass scanner
-    (runtime/csrc/pretok.cpp, ~30x the regex module's throughput,
-    differential-tested identical); other patterns use regex.findall.
+    (runtime/csrc/pretok.cpp, differential-tested identical to the
+    regex module); other patterns use regex.findall.
     """
     if pattern in PATTERNS:
         pattern = PATTERNS[pattern]
-    if pattern == PATTERN_GPT and text:
-        try:
-            return gpt_split(text)
-        except Exception:       # native runtime unavailable: exact slow path
-            pass
+    if pattern == PATTERN_GPT:
+        return gpt_split(text) if text else []
     return _compiled(pattern).findall(text)
 
 
@@ -121,10 +127,11 @@ def split_special(text: str, special_tokens: dict[str, int],
     use = {s for s in special_tokens if allowed is None or s in allowed}
     if not use:
         return [(False, text)] if text else []
+    # a literal alternation, longest first: the stdlib engine suffices
     pat = "(" + "|".join(
-        _re.escape(s) for s in sorted(use, key=len, reverse=True)) + ")"
+        re.escape(s) for s in sorted(use, key=len, reverse=True)) + ")"
     out: list[tuple[bool, str]] = []
-    for part in _re.split(pat, text):
+    for part in re.split(pat, text):
         if not part:
             continue
         out.append((part in use, part))

@@ -151,7 +151,7 @@ Corpus finalize_corpus(WordMap&& merged, uint64_t total_bytes,
       return x.first_touch < y.first_touch;
     });
   } else {
-    // Canonical deterministic order for the TPU path.
+    // Canonical deterministic order for the device path.
     std::stable_sort(rows.begin(), rows.end(), [](const Row& x, const Row& y) {
       if (x.count != y.count) return x.count > y.count;
       return *x.word < *y.word;

@@ -5,8 +5,8 @@
 // reference C++ trainer (see docs/CONFORMANCE.md for the derived spec;
 // reference behaviors cited per function as file:line of
 // /root/reference/shredword/csrc/...), so it can serve as the bit-exact
-// conformance oracle and as a fast CPU backend.  The TPU path (JAX/Pallas)
-// is the primary compute path; this runtime supplies corpus ingestion,
+// conformance oracle and as a fast CPU backend.  The device path (JAX) is
+// the primary compute path; this runtime supplies corpus ingestion,
 // the conformance oracle, and a fast CPU encoder.
 
 #pragma once
@@ -40,7 +40,7 @@ struct Config {
 //   * faithful: reference StrMap iteration order (djb2 & 4095 bucket,
 //     first-touch order within bucket) — required for oracle conformance.
 //   * canonical: (count desc, bytes asc) — deterministic regardless of
-//     thread count; used by the TPU trainer.
+//     thread count; used by the device trainer.
 // ---------------------------------------------------------------------------
 struct Corpus {
   std::vector<std::string> words;   // unique words, in chosen order
@@ -117,7 +117,7 @@ class FaithfulTrainer {
   bool save(const char* model_path, const char* vocab_path) const;
 
   // Current live token stream (post-merge corpus state), flattened in word
-  // order with per-token word ids — the hand-off format for the TPU path
+  // order with per-token word ids — the hand-off format for the device path
   // and for conformance checks of merge application.
   void export_tokens(std::vector<int32_t>* tokens,
                      std::vector<int32_t>* word_ids) const;

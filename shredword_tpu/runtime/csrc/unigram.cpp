@@ -1,5 +1,5 @@
 // Unigram-trainer native support: normalizer, seed-vocabulary
-// enumerator, and piece-lookup tables for the TPU lattice E-step.
+// enumerator, and piece-lookup tables for the device lattice E-step.
 //
 // Behavior is derived from the reference's dormant normalize module
 // (normalize.cpp:24-59 normalize_line; normalize.cpp:215-237
@@ -182,7 +182,7 @@ int64_t shred_seed_vocab_export(void* h, int64_t top_k, uint8_t* blob,
 // For every word w and position j and piece length l (1..max_piece_len),
 // out_ids[(w*Lmax + j)*max_piece_len + (l-1)] = id of the piece equal to
 // word[j : j+l], or -1.  Ids index the caller's piece list.  This is the
-// host-side precompute feeding the TPU forward-backward DP.
+// host-side precompute feeding the device forward-backward DP.
 
 int64_t shred_piece_table(const uint8_t* words_blob, const int64_t* offsets,
                           int64_t n_words, const uint8_t* pieces_blob,

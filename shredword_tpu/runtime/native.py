@@ -154,7 +154,8 @@ def _ptr(a: np.ndarray):
 
 @dataclass
 class CorpusArrays:
-    """Unique words as flat arrays — the hand-off format for the TPU path."""
+    """Unique words as flat arrays — the hand-off format for the device
+    path."""
 
     word_bytes: np.ndarray   # uint8 [unique_bytes], words concatenated
     offsets: np.ndarray      # int64 [n_words + 1]
@@ -447,7 +448,7 @@ def piece_table(words: list[bytes], pieces: list[bytes], lmax: int,
                 max_piece_len: int) -> np.ndarray:
     """int32[n_words, lmax, max_piece_len] piece ids: entry (w, j, l-1)
     is the id of pieces[...] equal to words[w][j:j+l], or -1.  The
-    host-side precompute feeding the TPU lattice forward-backward."""
+    host-side precompute feeding the device lattice forward-backward."""
     blob = b"".join(words)
     offsets = np.zeros(len(words) + 1, dtype=np.int64)
     np.cumsum([len(w) for w in words], out=offsets[1:])

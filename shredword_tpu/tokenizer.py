@@ -11,8 +11,9 @@ text base.py:111-149).
 
 Backends:
   - "cpu": native C++ rank-loop encoder with a word memo cache
-  - "tpu": flat-stream device encoder (ops/encode_ops.py); thousands of
-    chunks advance in one ``lax.while_loop`` dispatch
+  - "device": batched encoder on JAX's default device
+    (ops/encode_ops.py); thousands of chunks advance in one
+    ``lax.while_loop`` dispatch
 """
 
 from __future__ import annotations
@@ -185,11 +186,11 @@ class Tokenizer:
         word_bytes = np.frombuffer(flat, np.uint8)
         return self._native.encode_words(word_bytes, offsets)
 
-    def _encode_chunks_tpu(self, chunks: list[bytes]) -> np.ndarray:
-        return self._encode_groups_tpu(chunks, [0, len(chunks)])[0]
+    def _encode_chunks_device(self, chunks: list[bytes]) -> np.ndarray:
+        return self._encode_groups_device(chunks, [0, len(chunks)])[0]
 
-    def _encode_groups_tpu(self, chunks: list[bytes],
-                           bounds) -> list[np.ndarray]:
+    def _encode_groups_device(self, chunks: list[bytes],
+                              bounds) -> list[np.ndarray]:
         """Device encode of chunk groups (one output array per group —
         e.g. one group per document), all groups in ONE dispatch.
         Chunks longer than MAX_TW_LEN (rare after pre-tokenization) are
@@ -241,7 +242,7 @@ class Tokenizer:
         cut = np.nonzero(ws[1:] != ws[:-1])[0] + 1
         return np.diff(np.concatenate([[0], cut, [len(arr)]]))
 
-    def _encode_text_tpu(self, data: bytes) -> np.ndarray:
+    def _encode_text_device(self, data: bytes) -> np.ndarray:
         """Whole-text device encode: one fused native pass chunks AND
         dedups the raw bytes, the device encodes unique chunks, a
         native memcpy pass expands the ids (encode_ops.encode_ws_text)."""
@@ -253,7 +254,7 @@ class Tokenizer:
             256 + len(self.merges), self._table)
         if out is None:   # a chunk beyond MAX_TW_LEN: splice path
             chunks = pretokenize.whitespace_keep_split(data)
-            return self._encode_groups_tpu(chunks, [0, len(chunks)])[0]
+            return self._encode_groups_device(chunks, [0, len(chunks)])[0]
         return out
 
     def encode_ordinary(self, text: str) -> list[int]:
@@ -276,40 +277,36 @@ class Tokenizer:
             if self._native is None:
                 self._native = NativeEncoder(self.merges)
             return self._native.encode_text(text.encode("utf-8"))
-        if not self.pattern and self.backend == "tpu":
-            return self._encode_text_tpu(text.encode("utf-8"))
+        if not self.pattern and self.backend == "device":
+            return self._encode_text_device(text.encode("utf-8"))
         if self.pattern in ("gpt", pretokenize.PATTERN_GPT):
             # byte-level fast path: native GPT scanner gives chunk
             # offsets directly — no per-chunk Python strings
             data = text.encode("utf-8")
-            try:
-                starts = pretokenize.gpt_starts_bytes(data)
-            except Exception:
-                starts = None
-            if starts is not None:
-                lens = np.diff(np.concatenate([starts, [len(data)]]))
-                from .ops import encode_ops
-                if self.backend == "tpu" and len(lens) \
-                        and lens.max() <= encode_ops.MAX_TW_LEN:
-                    if self._table is None:
-                        self._table = {}
-                    arr = np.frombuffer(data, np.uint8)
-                    return encode_ops.encode_stream(
-                        arr, lens, self.merges, 256 + len(self.merges),
-                        None, self._table)[0]
-                if self.backend == "cpu":
-                    from .runtime.native import NativeEncoder
-                    if self._native is None:
-                        self._native = NativeEncoder(self.merges)
-                    offsets = np.concatenate(
-                        [starts, [len(data)]]).astype(np.int64)
-                    return self._native.encode_words(
-                        np.frombuffer(data, np.uint8), offsets)
+            starts = pretokenize.gpt_starts_bytes(data)
+            lens = np.diff(np.concatenate([starts, [len(data)]]))
+            from .ops import encode_ops
+            if self.backend == "device" and len(lens) \
+                    and lens.max() <= encode_ops.MAX_TW_LEN:
+                if self._table is None:
+                    self._table = {}
+                arr = np.frombuffer(data, np.uint8)
+                return encode_ops.encode_stream(
+                    arr, lens, self.merges, 256 + len(self.merges),
+                    None, self._table)[0]
+            if self.backend == "cpu":
+                from .runtime.native import NativeEncoder
+                if self._native is None:
+                    self._native = NativeEncoder(self.merges)
+                offsets = np.concatenate(
+                    [starts, [len(data)]]).astype(np.int64)
+                return self._native.encode_words(
+                    np.frombuffer(data, np.uint8), offsets)
         chunks = self._chunks(text)
         if not chunks:
             return np.zeros(0, np.int32)
-        if self.backend == "tpu":
-            return self._encode_chunks_tpu(chunks)
+        if self.backend == "device":
+            return self._encode_chunks_device(chunks)
         return self._encode_chunks_cpu(chunks)
 
     def encode(self, text: str, allowed_special="none_raise") -> list[int]:
@@ -349,11 +346,11 @@ class Tokenizer:
 
     def encode_batch(self, texts: list[str],
                      allowed_special="none_raise") -> list[list[int]]:
-        """Encode many texts.  On the tpu backend all texts' chunks are
+        """Encode many texts.  On the device backend all texts' chunks are
         concatenated into ONE flat-stream device dispatch (the whole
         batch advances in a single lax.while_loop) and split back by
         chunk ownership afterwards."""
-        if self.backend != "tpu" or self.special_tokens or not texts:
+        if self.backend != "device" or self.special_tokens or not texts:
             return [self.encode(t, allowed_special) for t in texts]
         return [g.tolist()
                 for g in self.encode_batch_arrays(texts, allowed_special)]
@@ -364,7 +361,7 @@ class Tokenizer:
         """encode_batch returning int32 numpy arrays — skips the
         per-id Python list materialization (2.3M PyLong boxes per 4 MB
         of text); use for bulk pipelines, ids feed decode directly."""
-        if self.backend != "tpu" or self.special_tokens or not texts:
+        if self.backend != "device" or self.special_tokens or not texts:
             return [np.asarray(self.encode(t, allowed_special), np.int32)
                     for t in texts]
         from .ops import encode_ops
@@ -396,7 +393,7 @@ class Tokenizer:
             return [np.zeros(0, np.int32) for _ in texts]
         bounds = np.zeros(len(texts) + 1, np.int64)
         np.cumsum(n_chunks_per_text, out=bounds[1:])
-        return list(self._encode_groups_tpu(chunks, bounds))
+        return list(self._encode_groups_device(chunks, bounds))
 
     # ------------------------------------------------------------------
     # decode
@@ -471,7 +468,7 @@ class Tokenizer:
     @classmethod
     def train(cls, corpus_path: str, vocab_size: int = 8192,
               min_pair_freq: int = 2, character_coverage: float = 1.0,
-              pattern: str = "", backend: str = "tpu",
+              pattern: str = "", backend: str = "device",
               **trainer_kwargs) -> "Tokenizer":
         """Train from a corpus file and return a ready tokenizer.
 

@@ -5,17 +5,15 @@
    continuation bytes and clamping cp >= 0x110000).
 2. encode_ops must not allocate a dense v*v rank table for big vocabs
    (hash-probe MergeTable path above DENSE_V_MAX, identical output).
-3. bpe_giant: an out-of-on-chip-memory compile failure on the first
-   dispatch returns None (envelope miss) instead of raising.
-4. bpe_hist.hist_train routes an EXPLICIT max_steps_per_call to the
-   giant engine verbatim instead of silently raising it to 4096.
+4. bpe_hist.hist_train passes an EXPLICIT max_steps_per_call to the
+   loop verbatim at any vocab.
 """
 
 import numpy as np
 import pytest
 
 from shredword_tpu import pretokenize
-from shredword_tpu.ops import bpe_giant, bpe_hist, encode_ops
+from shredword_tpu.ops import bpe_hist, encode_ops
 
 
 # ---------------------------------------------------------------------
@@ -83,7 +81,7 @@ def test_get_table_selects_hash_above_threshold():
 
 
 # ---------------------------------------------------------------------
-# 3. giant engine: resource-exhausted compile -> None, not a raise
+# 4. explicit max_steps_per_call reaches the table engine verbatim
 # ---------------------------------------------------------------------
 
 def _tiny_corpus():
@@ -96,62 +94,25 @@ def _tiny_corpus():
     return toks, wid, counts
 
 
-def test_giant_train_returns_none_on_resource_compile_error(monkeypatch):
-    toks, wid, counts = _tiny_corpus()
-
-    def boom(*a, **k):
-        def giant(*aa, **kk):
-            raise RuntimeError(
-                "Mosaic failed to compile: scalar memory (SMEM) limit "
-                "exceeded")
-        return giant
-
-    monkeypatch.setattr(bpe_giant, "make_giant_train", boom)
-    out = bpe_giant.giant_train(
-        toks, wid, counts, target_merges=4, interpret=True,
-        steps_per_call=11, _cache={})
-    assert out is None
-
-
-def test_giant_train_reraises_non_resource_errors(monkeypatch):
-    toks, wid, counts = _tiny_corpus()
-
-    def boom(*a, **k):
-        def giant(*aa, **kk):
-            raise ValueError("shape mismatch somewhere")
-        return giant
-
-    monkeypatch.setattr(bpe_giant, "make_giant_train", boom)
-    with pytest.raises(ValueError):
-        bpe_giant.giant_train(
-            toks, wid, counts, target_merges=4, interpret=True,
-            steps_per_call=12, _cache={})
-
-
-# ---------------------------------------------------------------------
-# 4. explicit max_steps_per_call reaches the giant engine verbatim
-# ---------------------------------------------------------------------
-
 def test_hist_train_respects_explicit_steps_for_giant(monkeypatch):
     toks, wid, counts = _tiny_corpus()
-    seen = {}
+    seen = []
+    orig = bpe_hist.make_train_loop
 
-    def fake_giant_train(*a, **k):
-        seen["steps"] = k["steps_per_call"]
-        return None
+    def spy(v, *, target_merges, max_steps):
+        seen.append(max_steps)
+        return orig(v, target_merges=target_merges, max_steps=max_steps)
 
-    monkeypatch.setattr(bpe_giant, "giant_train", fake_giant_train)
-    # vocab > 4096 routes straight to the giant engine
-    out = bpe_hist.hist_train(
-        toks, wid, counts, target_merges=5000,
-        max_steps_per_call=64, interpret=True)
-    assert out is None
-    assert seen["steps"] == 64
+    monkeypatch.setattr(bpe_hist, "make_train_loop", spy)
+    # vocab > 4096: the cadence is the caller's, verbatim
+    out = bpe_hist.hist_train(toks, wid, counts, target_merges=5000,
+                              max_steps_per_call=64, _cache={})
+    assert out is not None
+    assert seen == [64]
 
-    # default (None) keeps the giant engine's own 4096 cadence
-    bpe_hist.hist_train(toks, wid, counts, target_merges=5000,
-                        interpret=True)
-    assert seen["steps"] == 4096
+    # default (None) keeps the engine's own cadence
+    bpe_hist.hist_train(toks, wid, counts, target_merges=5000, _cache={})
+    assert seen == [64, bpe_hist.STEPS_PER_CALL]
 
 
 # ---------------------------------------------------------------------

@@ -7,9 +7,6 @@
    delimiter-free run cannot be built in CI; the guard returns -1 and
    native.py raises ValueError — asserted by reading the code path via
    the small-input behavior staying intact, tests/test_tokenizer.py).
-3. bpe_giant width estimate uses word_id.max() — perf-only; the merge
-   conformance across widths is pinned by
-   test_giant_engine.test_giant_chunk_width_conformance.
 """
 
 import numpy as np

@@ -17,7 +17,7 @@ def corpus(request):
 
 def _train_full(corpus, **kw):
     t = BPETrainer(target_vocab_size=320, unk_id=-1, min_pair_freq=2,
-                   backend="tpu", **kw)
+                   backend="device", **kw)
     t.load_corpus(corpus)
     t.train()
     return t
@@ -27,7 +27,7 @@ def test_resume_matches_uninterrupted(corpus, tmp_path):
     full = _train_full(corpus)
 
     part = BPETrainer(target_vocab_size=320, unk_id=-1, min_pair_freq=2,
-                      backend="tpu")
+                      backend="device")
     part.load_corpus(corpus)
     n1 = part.train(max_merges=10)
     assert n1 == 10
@@ -36,7 +36,7 @@ def test_resume_matches_uninterrupted(corpus, tmp_path):
     part.destroy()
 
     resumed = BPETrainer(target_vocab_size=320, unk_id=-1, min_pair_freq=2,
-                         backend="tpu")
+                         backend="device")
     resumed.load_corpus(corpus)
     assert resumed.load_checkpoint(cp) == 10
     resumed.train()
@@ -50,7 +50,7 @@ def test_resume_matches_uninterrupted(corpus, tmp_path):
 def test_auto_checkpoint_written(corpus, tmp_path):
     cp = str(tmp_path / "auto.ckpt")
     t = BPETrainer(target_vocab_size=320, unk_id=-1, min_pair_freq=2,
-                   backend="tpu", engine="flat", merges_per_device_call=8,
+                   backend="device", engine="flat", merges_per_device_call=8,
                    checkpoint_path=cp, checkpoint_every=8)
     t.load_corpus(corpus)
     n = t.train()
@@ -92,7 +92,7 @@ def test_giant_engine_checkpoint_cadence(zipf_corpus_file, tmp_path):
     path = str(tmp_path / "g.ckpt")
     t = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", engine="giant",
+                   backend="device", engine="giant",
                    checkpoint_path=path, checkpoint_every=8)
     t.load_corpus(zipf_corpus_file)
     n = t.train()
@@ -103,7 +103,7 @@ def test_giant_engine_checkpoint_cadence(zipf_corpus_file, tmp_path):
     # interrupt after 8 merges, resume on the giant engine itself
     half = BPETrainer(target_vocab_size=330, unk_id=-1,
                       character_coverage=0.9995, min_pair_freq=5,
-                      backend="tpu", engine="giant")
+                      backend="device", engine="giant")
     half.load_corpus(zipf_corpus_file)
     assert half.train(max_merges=8) == 8
     cp2 = str(tmp_path / "g2.ckpt")
@@ -111,7 +111,7 @@ def test_giant_engine_checkpoint_cadence(zipf_corpus_file, tmp_path):
 
     resumed = BPETrainer(target_vocab_size=330, unk_id=-1,
                          character_coverage=0.9995, min_pair_freq=5,
-                         backend="tpu", engine="giant")
+                         backend="device", engine="giant")
     resumed.load_corpus(zipf_corpus_file)
     assert resumed.load_checkpoint(cp2) == 8
     assert resumed.train() == n - 8
@@ -132,14 +132,14 @@ def test_hist_engine_resume_matches_uninterrupted(zipf_corpus_file,
 
     full = BPETrainer(target_vocab_size=330, unk_id=-1,
                       character_coverage=0.9995, min_pair_freq=5,
-                      backend="tpu", engine="hist")
+                      backend="device", engine="hist")
     full.load_corpus(zipf_corpus_file)
     n = full.train()
     assert n > 12
 
     half = BPETrainer(target_vocab_size=330, unk_id=-1,
                       character_coverage=0.9995, min_pair_freq=5,
-                      backend="tpu", engine="hist")
+                      backend="device", engine="hist")
     half.load_corpus(zipf_corpus_file)
     assert half.train(max_merges=12) == 12
     cp = str(tmp_path / "h.ckpt")
@@ -148,7 +148,7 @@ def test_hist_engine_resume_matches_uninterrupted(zipf_corpus_file,
     path2 = str(tmp_path / "h_auto.ckpt")
     resumed = BPETrainer(target_vocab_size=330, unk_id=-1,
                          character_coverage=0.9995, min_pair_freq=5,
-                         backend="tpu", engine="hist",
+                         backend="device", engine="hist",
                          checkpoint_path=path2, checkpoint_every=8)
     resumed.load_corpus(zipf_corpus_file)
     assert resumed.load_checkpoint(cp) == 12

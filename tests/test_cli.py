@@ -70,11 +70,11 @@ def test_cli_convert_and_info(trained_model, tmp_path, capsys):
 
 
 def test_faithful_tiebreak_tpu_backend_falls_back(trained_model, tmp_path):
-    """tie_break='faithful' must work under backend='tpu' (routes to the
+    """tie_break='faithful' must work under backend='device' (routes to the
     native faithful engine; selection artifacts are CPU-only)."""
     corpus, model, _ = trained_model
     t = BPETrainer(target_vocab_size=320, unk_id=-1, min_pair_freq=2,
-                   backend="tpu", tie_break="faithful")
+                   backend="device", tie_break="faithful")
     t.load_corpus(corpus)
     t.train()
     out = str(tmp_path / "f.model")

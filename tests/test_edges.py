@@ -91,7 +91,7 @@ def test_context_manager_and_multi_corpus(tmp_path):
     c1.write_text("alpha beta alpha beta\n" * 20)
     c2.write_text("beta gamma beta gamma\n" * 20)
     with BPETrainer(target_vocab_size=280, unk_id=-1, min_pair_freq=2,
-                    backend="tpu") as t:
+                    backend="device") as t:
         t.load_corpora([str(c1), str(c2)])
         n = t.train()
         assert n > 0
@@ -110,7 +110,7 @@ def test_single_char_corpus(tmp_path):
     p = tmp_path / "one.txt"
     p.write_text("a a a a a a\n" * 50)
     t = BPETrainer(target_vocab_size=300, unk_id=-1, min_pair_freq=2,
-                   backend="tpu")
+                   backend="device")
     t.load_corpus(str(p))
     assert t.train() == 0
 
@@ -119,7 +119,7 @@ def test_long_word_falls_back_to_flat_engine(tmp_path):
     p = tmp_path / "long.txt"
     p.write_text(("x" * 200 + " ") * 40 + "ab ab ab ab\n" * 30)
     t = BPETrainer(target_vocab_size=280, unk_id=-1, min_pair_freq=2,
-                   backend="tpu", engine="auto")
+                   backend="device", engine="auto")
     t.load_corpus(str(p))
     n = t.train()
     assert n > 0  # the 200-byte word forces the flat engine; still works

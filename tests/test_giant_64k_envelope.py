@@ -1,8 +1,7 @@
-"""The 64k sharded-vocab envelope, exercised AT the int16 boundary
-(r4 verdict item 4): sharded_giant_train must produce merge ids past
-32767 — the exact point where the corpus representation must be int32
-(parallel/giant.py casts the layout to int32 for this reason; the
-single-chip giant engine stops at 32768 because its corpus is int16).
+"""The 64k sharded-vocab envelope, exercised past the int16 boundary:
+sharded_giant_train must produce merge ids past 32767 and consume them
+(the layout is int32; the single-device table engine stops at 32768
+because of its table size).
 
 A fresh run reaching 32768 merges needs a GB-scale corpus and hours of
 virtual-mesh CPU time, so the test uses the resume path instead: seed

@@ -1,9 +1,6 @@
-"""Giant-vocab engine (ops/bpe_giant.py): differential conformance vs
-the flat engine, envelope/decline behavior, and dispatch routing.
-
-All device work runs in interpret mode on CPU (conftest forces the cpu
-backend); real-TPU validation happens in bench and was cross-checked
-bit-identical vs the fused and flat engines at vocab 2048/8192/32768.
+"""The table engine beyond vocab 4096 (the range the removed giant
+engine served): differential conformance vs the flat engine,
+envelope/decline behavior, and engine="giant"/"hist" selection.
 """
 
 import numpy as np
@@ -11,7 +8,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from shredword_tpu.ops import bpe_giant, bpe_hist, bpe_ops
+from shredword_tpu.ops import bpe_hist, bpe_ops
 
 
 def gen_corpus(seed, n_words=60, vmax=250, maxlen=9):
@@ -47,9 +44,9 @@ def flat_reference(tokens, word_id, wcount_per_word, target, unk, minf):
 ])
 def test_giant_matches_flat(seed, target, unk, minf):
     tokens, wid, wcnt = gen_corpus(seed)
-    got = bpe_giant.giant_train(
+    got = bpe_hist.hist_train(
         tokens, wid, wcnt, target_merges=target, unk_id=unk,
-        min_pair_freq=minf, interpret=True, steps_per_call=32)
+        min_pair_freq=minf, max_steps_per_call=32)
     assert got is not None
     gm, gf, gt, gw = got
     rm, rf, rt, rw = flat_reference(tokens, wid, wcnt, target, unk, minf)
@@ -61,9 +58,9 @@ def test_giant_matches_flat(seed, target, unk, minf):
 
 def test_giant_lazy_final_and_multicall():
     tokens, wid, wcnt = gen_corpus(1, n_words=50)
-    got = bpe_giant.giant_train(
+    got = bpe_hist.hist_train(
         tokens, wid, wcnt, target_merges=48, unk_id=-1, min_pair_freq=1,
-        interpret=True, steps_per_call=7,      # forces continuation calls
+        max_steps_per_call=7,                  # forces continuation calls
         lazy_final=True)
     assert got is not None
     gm, gf, final_fn = got
@@ -75,13 +72,13 @@ def test_giant_lazy_final_and_multicall():
 
 
 def test_giant_big_vocab_layout():
-    # vocab > 4096 exercises the multi-row-group table paths; the corpus
-    # exhausts long before the target, which also checks termination
+    # vocab > 4096; the corpus exhausts long before the target, which
+    # also checks termination
     tokens, wid, wcnt = gen_corpus(5, n_words=40, maxlen=6)
-    target = 5000 - 256          # v = 4864 > 4096
-    got = bpe_giant.giant_train(
+    target = 5000 - 256          # v = 5120 > 4096
+    got = bpe_hist.hist_train(
         tokens, wid, wcnt, target_merges=target, unk_id=-1,
-        min_pair_freq=1, interpret=True, steps_per_call=64)
+        min_pair_freq=1, max_steps_per_call=64)
     assert got is not None
     gm, gf, gt, gw = got
     rm, rf, rt, rw = flat_reference(tokens, wid, wcnt, target, -1, 1)
@@ -95,22 +92,20 @@ def test_giant_declines_out_of_envelope():
     long_tokens = np.concatenate([tokens, np.ones(100, np.int32)])
     long_wid = np.concatenate([wid, np.full(100, wid[-1] + 1, np.int32)])
     long_wcnt = np.concatenate([wcnt, np.ones(1, np.int32)])
-    assert bpe_giant.giant_train(long_tokens, long_wid, long_wcnt,
-                                 target_merges=10, interpret=True) is None
-    # vocab beyond int16 ids
-    assert bpe_giant.giant_train(tokens, wid, wcnt,
-                                 target_merges=40000,
-                                 interpret=True) is None
-    # unk outside byte range would break the byte-confined init table
-    assert bpe_giant.giant_train(tokens, wid, wcnt, target_merges=10,
-                                 unk_id=300, interpret=True) is None
+    assert bpe_hist.hist_train(long_tokens, long_wid, long_wcnt,
+                               target_merges=10) is None
+    # vocab beyond the single-device table
+    assert bpe_hist.hist_train(tokens, wid, wcnt,
+                               target_merges=40000) is None
 
 
 def test_hist_train_routes_to_giant_beyond_4096():
+    """hist_train itself serves vocab beyond 4096 (once the giant
+    engine's range) and matches the flat engine there."""
     tokens, wid, wcnt = gen_corpus(6, n_words=40, maxlen=6)
     target = 4864 - 256
     out = bpe_hist.hist_train(tokens, wid, wcnt, target_merges=target,
-                              unk_id=-1, min_pair_freq=1, interpret=True,
+                              unk_id=-1, min_pair_freq=1,
                               max_steps_per_call=64)
     assert out is not None
     gm, gf, gt, gw = out
@@ -119,68 +114,31 @@ def test_hist_train_routes_to_giant_beyond_4096():
     np.testing.assert_array_equal(gt, rt)
 
 
-def test_giant_layout_roundtrip():
-    tokens, wid, wcnt = gen_corpus(7, n_words=30)
-    lay = bpe_giant.build_giant_layout(tokens, wid, wcnt, 512)
-    assert lay is not None
-    # presence index is exact
-    for c in range(lay.tw.shape[1] // bpe_giant.C):
-        vals = np.unique(lay.tw[:, c * bpe_giant.C:(c + 1) * bpe_giant.C])
-        vals = vals[(vals >= 0)]
-        expect = np.zeros(512, np.int8)
-        expect[vals] = 1
-        np.testing.assert_array_equal(lay.presT[:, c], expect)
-    # length sort is a permutation carrying weights along
-    wc_cols = lay.wc[0, :lay.n_words]
-    np.testing.assert_array_equal(np.sort(wc_cols), np.sort(wcnt))
+@pytest.mark.parametrize("engine", ["giant", "hist"])
+def test_engine_names_select_table_engine(engine, monkeypatch):
+    """engine='giant' and engine='hist' both select the table engine,
+    beyond vocab 4096 too, and it matches the flat engine."""
+    from shredword_tpu.models.bpe import BPETrainer
+    calls = []
+    orig = bpe_hist.hist_train
 
+    def spy(*a, **k):
+        calls.append(k["target_merges"])
+        return orig(*a, **k)
 
-def test_giant_chunk_width_conformance():
-    """Wider DMA chunks must not change the merge sequence."""
-    import numpy as np
-    from shredword_tpu.ops import bpe_giant
-    rng = np.random.default_rng(11)
-    words = []
-    for _ in range(600):
-        n = int(rng.integers(2, 9))
-        words.append(bytes(rng.integers(97, 103, n).tolist()))
-    counts = rng.integers(1, 50, len(words)).astype(np.int32)
-    toks = np.concatenate([np.frombuffer(w, np.uint8).astype(np.int32)
-                           for w in words])
-    wid = np.repeat(np.arange(len(words), dtype=np.int32),
-                    [len(w) for w in words])
-    outs = []
-    for cw in (512, 1024):
-        m, f, *_ = bpe_giant.giant_train(
-            toks, wid, counts, target_merges=24, min_pair_freq=2,
-            interpret=True, steps_per_call=8, chunk_width=cw, _cache={})
-        outs.append((m.tolist(), f.tolist()))
-    assert outs[0] == outs[1]
-
-
-def test_giant_batch_chunks_conformance():
-    """K-chunk batching (r05: amortizes per-VPU-pass issue latency at
-    GB scale) must not change merges, freqs, or the final corpus —
-    words are columns, so horizontal batching is semantics-preserving
-    by construction; this pins it, including partial tail batches and
-    kb > chunk-count padding."""
-    import numpy as np
-    from shredword_tpu.ops import bpe_giant
-    rng = np.random.default_rng(13)
-    words = []
-    for _ in range(1200):
-        n = int(rng.integers(2, 9))
-        words.append(bytes(rng.integers(97, 103, n).tolist()))
-    counts = rng.integers(1, 50, len(words)).astype(np.int32)
-    toks = np.concatenate([np.frombuffer(w, np.uint8).astype(np.int32)
-                           for w in words])
-    wid = np.repeat(np.arange(len(words), dtype=np.int32),
-                    [len(w) for w in words])
-    outs = []
-    for kb in (1, 2, 4):
-        m, f, ft, fw = bpe_giant.giant_train(
-            toks, wid, counts, target_merges=24, min_pair_freq=2,
-            interpret=True, steps_per_call=8, chunk_width=512,
-            batch_chunks=kb, _cache={})
-        outs.append((m.tolist(), f.tolist(), ft.tolist(), fw.tolist()))
-    assert outs[0] == outs[1] == outs[2]
+    monkeypatch.setattr(bpe_hist, "hist_train", spy)
+    data = b"".join(bytes([97 + i % 7, 98 + i % 5, 99 + i % 3, 32])
+                    for i in range(600)) + b"\n"
+    t = BPETrainer(target_vocab_size=4864, unk_id=-1,
+                   character_coverage=1.0, min_pair_freq=1,
+                   engine=engine)
+    t.load_corpus_bytes(data)
+    n = t.train()
+    assert calls == [4864 - 256]
+    f = BPETrainer(target_vocab_size=4864, unk_id=-1,
+                   character_coverage=1.0, min_pair_freq=1, engine="flat")
+    f.load_corpus_bytes(data)
+    assert f.train() == n
+    np.testing.assert_array_equal(t.merges, f.merges)
+    np.testing.assert_array_equal(t.token_frequencies(),
+                                  f.token_frequencies())

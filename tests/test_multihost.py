@@ -43,8 +43,7 @@ tokens = rng.randint(97, 105, len(word_id)).astype(np.int32)
 wc_word = rng.randint(1, 40, n_words).astype(np.int32)
 
 res = sharded_hist_train(tokens, word_id, wc_word, mesh=mesh,
-                         target_merges=12, unk_id=-1, min_pair_freq=2,
-                         interpret=True)
+                         target_merges=12, unk_id=-1, min_pair_freq=2)
 assert res is not None
 merges, freqs = res
 
@@ -316,6 +315,6 @@ def test_two_process_distributed_training(tmp_path):
     wc_word = rng.randint(1, 40, n_words).astype(np.int32)
     from shredword_tpu.ops import bpe_hist
     ref = bpe_hist.hist_train(tokens, word_id, wc_word, target_merges=12,
-                              unk_id=-1, min_pair_freq=2, interpret=True)
+                              unk_id=-1, min_pair_freq=2)
     merges = a[: 2 * len(ref[0])].reshape(-1, 2)
     np.testing.assert_array_equal(merges, ref[0])

@@ -26,7 +26,7 @@ def test_set_merges_rebuilds_everything(tmp_path):
     assert max(ids_full) >= 256
     # prime every cache (native encoder, device table, decode table)
     tok.decode(ids_full)
-    tok.backend = "tpu"
+    tok.backend = "device"
     assert tok.encode_ordinary(text) == ids_full
     tok.backend = "cpu"
 
@@ -38,7 +38,7 @@ def test_set_merges_rebuilds_everything(tmp_path):
     assert ids_small != ids_full
     assert max(ids_small) <= 256              # only merge 0 exists now
     assert tok.decode(ids_small) == text      # decode table rebuilt too
-    tok.backend = "tpu"
+    tok.backend = "device"
     assert tok.encode_ordinary(text) == ids_small   # device table rebuilt
 
     tok.backend = "cpu"

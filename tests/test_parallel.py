@@ -1,7 +1,7 @@
 """Sharded-training tests on an 8-virtual-device CPU mesh.
 
 The sharded trainer must produce the exact merge sequence of the
-single-device TPU trainer (same lex tie-break, integer counts ->
+single-device trainer (same lex tie-break, integer counts ->
 bit-deterministic psum-equivalent reduction).
 """
 
@@ -33,7 +33,7 @@ def test_sharded_matches_single_device(zipf_corpus_file, n_shards):
 
     t = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu")
+                   backend="device")
     t.load_corpus(zipf_corpus_file)
     n = t.train()
     assert n > 0
@@ -56,7 +56,7 @@ def test_sharded_hist_matches_single_device(zipf_corpus_file, n_shards):
 
     t = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu")
+                   backend="device")
     t.load_corpus(zipf_corpus_file)
     n = t.train()
 
@@ -65,7 +65,7 @@ def test_sharded_hist_matches_single_device(zipf_corpus_file, n_shards):
     mesh = parallel.make_mesh(n_shards)
     out = parallel.sharded_hist_train(
         tokens, word_id, wc_word, mesh=mesh, target_merges=330 - 256,
-        unk_id=-1, min_pair_freq=5, interpret=True)
+        unk_id=-1, min_pair_freq=5)
     assert out is not None
     merges, freqs = out
     assert len(merges) == n
@@ -105,7 +105,7 @@ def test_bpetrainer_mesh_wiring(zipf_corpus_file):
 
     single = BPETrainer(target_vocab_size=330, unk_id=-1,
                         character_coverage=0.9995, min_pair_freq=5,
-                        backend="tpu")
+                        backend="device")
     single.load_corpus(zipf_corpus_file)
     n = single.train()
     assert n > 0
@@ -113,7 +113,7 @@ def test_bpetrainer_mesh_wiring(zipf_corpus_file):
     mesh = parallel.make_mesh(4)
     t = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", mesh=mesh)
+                   backend="device", mesh=mesh)
     t.load_corpus(zipf_corpus_file)
     assert t.train() == n
     np.testing.assert_array_equal(t.merges, single.merges)
@@ -123,7 +123,7 @@ def test_bpetrainer_mesh_wiring(zipf_corpus_file):
 
     t2 = BPETrainer(target_vocab_size=330, unk_id=-1,
                     character_coverage=0.9995, min_pair_freq=5,
-                    backend="tpu", shards=2)
+                    backend="device", shards=2)
     t2.load_corpus(zipf_corpus_file)
     assert t2.train() == n
     np.testing.assert_array_equal(t2.merges, single.merges)
@@ -137,7 +137,7 @@ def test_bpetrainer_shards_flat_fallback(zipf_corpus_file, monkeypatch):
 
     single = BPETrainer(target_vocab_size=2400, unk_id=-1,
                         character_coverage=0.9995, min_pair_freq=5,
-                        backend="tpu", engine="flat")
+                        backend="device", engine="flat")
     single.load_corpus(zipf_corpus_file)
     n = single.train()
     assert n > 0
@@ -146,16 +146,16 @@ def test_bpetrainer_shards_flat_fallback(zipf_corpus_file, monkeypatch):
                         lambda *a, **k: None)
     t = BPETrainer(target_vocab_size=2400, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", shards=2)
+                   backend="device", shards=2)
     t.load_corpus(zipf_corpus_file)
     assert t.train() == n
     np.testing.assert_array_equal(t.merges, single.merges)
 
 
 def test_sharded_giant_matches_single_device():
-    """Table-row-sharded giant engine (vocab beyond one chip's table):
-    bit-identical merges to the single-device hist engine, invariant to
-    shard count."""
+    """Table-row-sharded giant engine (vocab beyond one device's
+    table): bit-identical merges to the single-device table engine,
+    invariant to shard count."""
     from shredword_tpu.ops import bpe_hist
     from shredword_tpu.parallel import make_mesh, sharded_giant_train
 
@@ -170,7 +170,7 @@ def test_sharded_giant_matches_single_device():
 
     m_ref, f_ref, _ = bpe_hist.hist_train(
         toks, wid, counts, target_merges=32, min_pair_freq=2,
-        interpret=True, lazy_final=True)
+        lazy_final=True)
 
     for n_shards in (2, 8):
         m, f = sharded_giant_train(
@@ -188,14 +188,14 @@ def test_bpetrainer_shards_giant_engine(zipf_corpus_file):
 
     single = BPETrainer(target_vocab_size=4500, unk_id=-1,
                         character_coverage=0.9995, min_pair_freq=5,
-                        backend="tpu", engine="flat")
+                        backend="device", engine="flat")
     single.load_corpus(zipf_corpus_file)
     n = single.train()
     assert n > 0
 
     t = BPETrainer(target_vocab_size=4500, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", shards=4)
+                   backend="device", shards=4)
     t.load_corpus(zipf_corpus_file)
     assert t.train() == n
     np.testing.assert_array_equal(t.merges, single.merges)
@@ -211,7 +211,7 @@ def test_sharded_hist_vocab_4096_matches_single(zipf_corpus_file):
 
     single = BPETrainer(target_vocab_size=4096, unk_id=-1,
                         character_coverage=0.9995, min_pair_freq=5,
-                        backend="tpu", engine="flat")
+                        backend="device", engine="flat")
     single.load_corpus(zipf_corpus_file)
     n = single.train()
     assert n > 0
@@ -222,8 +222,7 @@ def test_sharded_hist_vocab_4096_matches_single(zipf_corpus_file):
     for n_shards in (2, 4):
         out = parallel.sharded_hist_train(
             tokens, word_id, wc_word, mesh=parallel.make_mesh(n_shards),
-            target_merges=4096 - 256, min_pair_freq=5,
-            interpret=True)
+            target_merges=4096 - 256, min_pair_freq=5)
         assert out is not None, "v=4096 must fit the sharded hist engine"
         merges, freqs = out
         np.testing.assert_array_equal(merges, single.merges)

@@ -1,6 +1,11 @@
 """GPT-pattern pre-tokenizer (ops/pretok_ops.py + csrc/pretok.cpp):
 differential conformance of BOTH fast paths against the regex module
-(BASELINE config 4: "parity vs regex module output")."""
+(BASELINE config 4: "parity vs regex module output").
+
+Run as a script, this module regenerates the shipped codepoint class
+table (shredword_tpu/ops/gpt_classes.npz) from the regex module:
+``python tests/test_pretok_dfa.py``.
+"""
 
 import numpy as np
 import pytest
@@ -10,6 +15,43 @@ from shredword_tpu import pretokenize
 from shredword_tpu.ops import pretok_ops
 
 PAT = _re.compile(pretokenize.PATTERN_GPT)
+
+
+def build_class_table() -> np.ndarray:
+    """Classify every codepoint with the regex module itself — the
+    ground truth the shipped run-length table is generated from."""
+    P = pretok_ops
+    table = np.zeros(P.MAX_CP, np.int8)
+    all_cps = "".join(
+        chr(c) for c in range(P.MAX_CP)
+        if not (0xD800 <= c <= 0xDFFF))          # surrogates unencodable
+    cps = np.frombuffer(all_cps.encode("utf-32-le"), np.uint32)
+
+    def hits(pattern):
+        h = np.zeros(len(cps), bool)
+        for m in _re.finditer(pattern, all_cps):
+            h[m.start():m.end()] = True
+        return h
+
+    table[cps[hits(r"\s")]] = P.C_WS
+    table[cps[hits(r"\p{N}")]] = P.C_DIGIT
+    letter = hits(r"\p{L}")
+    table[cps[letter]] = P.C_LETTER
+    for pat, cls in ((r"s", P.C_S), (r"d", P.C_D), (r"m", P.C_M),
+                     (r"t", P.C_T), (r"l", P.C_L), (r"v", P.C_V),
+                     (r"r", P.C_R), (r"e", P.C_E)):
+        sel = hits(f"(?i:{pat})") & letter
+        table[cps[sel]] = cls
+    table[ord(" ")] = P.C_SPACE
+    table[ord("\r")] = P.C_CR
+    table[ord("\n")] = P.C_LF
+    table[ord("'")] = P.C_APO
+    return table
+
+
+def test_shipped_class_table_matches_regex_module():
+    np.testing.assert_array_equal(pretok_ops.class_table(),
+                                  build_class_table())
 
 CASES = [
     "hello world", "we'll they've it's can't o'clock", "'ll 'Ve 'S",
@@ -75,7 +117,7 @@ def test_tokenizer_gpt_pattern_encode_matches_regex_chunking():
     from shredword_tpu.tokenizer import Tokenizer
     merges = np.array([[104, 101], [32, 119]], np.int32)   # "he", " w"
     text = "he said we'll win 100 games!\n  heh"
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         tok = Tokenizer(merges=merges, pattern="gpt", backend=backend)
         got = tok.encode(text)
         # oracle: regex chunking + per-chunk cpu encode
@@ -107,3 +149,11 @@ def test_device_splitter_fuzz():
         want = pretok_ops.gpt_starts(cp).tolist()
         got = pretok_ops.gpt_starts_device(cp).tolist()
         assert got == want, repr(s)
+
+
+if __name__ == "__main__":
+    t = build_class_table()
+    starts = np.concatenate([[0], np.nonzero(np.diff(t))[0] + 1])
+    np.savez_compressed(pretok_ops.TABLE_PATH,
+                        starts=starts.astype(np.int32), classes=t[starts])
+    print(f"wrote {len(starts)} runs to {pretok_ops.TABLE_PATH}")

@@ -23,7 +23,7 @@ def test_forward_backward_word_of_length_L():
     wlen = np.array([4], np.int32)
     wc = np.ones(1, np.float32)
     c_dev, ll_dev = unigram_ops.forward_backward(
-        table, wlen, wc, logp, len(pieces), backend="tpu")
+        table, wlen, wc, logp, len(pieces), backend="device")
     c_cpu, ll_cpu = unigram_ops.forward_backward(
         table, wlen, wc, logp, len(pieces), backend="cpu")
     assert c_cpu.sum() > 0.5  # the lattice is segmentable

@@ -16,7 +16,7 @@ from shredword_tpu.models.bpe import BPETrainer
 def _train(zcorpus, *, shards=0, max_merges=None, prev=None, **kw):
     t = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", shards=shards, **kw)
+                   backend="device", shards=shards, **kw)
     t.load_corpus(zcorpus)
     if prev is not None:
         assert t.load_checkpoint(prev) > 0

@@ -39,12 +39,12 @@ def oracle_encode_chunk(data: bytes, merges) -> list[int]:
 def trained(tmp_path_factory, zipf_corpus_text):
     p = tmp_path_factory.mktemp("tok") / "corpus.txt"
     p.write_text(zipf_corpus_text)
-    return Tokenizer.train(str(p), vocab_size=384, backend="tpu")
+    return Tokenizer.train(str(p), vocab_size=384, backend="device")
 
 
 def test_roundtrip_exact(trained):
     text = "the quick brown fox jumps over the lazy dog\n  multi  space\tand tabs"
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         trained.backend = backend
         ids = trained.encode(text)
         assert trained.decode(ids) == text, backend
@@ -54,9 +54,9 @@ def test_backend_parity(trained, zipf_corpus_text):
     text = zipf_corpus_text[:5000]
     trained.backend = "cpu"
     cpu_ids = trained.encode(text)
-    trained.backend = "tpu"
-    tpu_ids = trained.encode(text)
-    assert cpu_ids == tpu_ids
+    trained.backend = "device"
+    dev_ids = trained.encode(text)
+    assert cpu_ids == dev_ids
 
 
 def test_encode_matches_oracle(trained, zipf_corpus_text):
@@ -66,7 +66,7 @@ def test_encode_matches_oracle(trained, zipf_corpus_text):
     expected = []
     for c in chunks:
         expected.extend(oracle_encode_chunk(c, trained.merges))
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         trained.backend = backend
         assert trained.encode(text) == expected, backend
 
@@ -74,7 +74,7 @@ def test_encode_matches_oracle(trained, zipf_corpus_text):
 def test_overlap_run_encode(trained):
     # force a merge table containing (97,97): 'aaaa' -> [X,X], 'aaa' -> [X,97]
     tok = Tokenizer(merges=np.array([[97, 97]], np.int32))
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         tok.backend = backend
         assert tok.encode("aaaa") == [256, 256], backend
         assert tok.encode("aaa") == [256, 97], backend
@@ -118,7 +118,7 @@ def test_regex_pretokenizer_parity():
 def test_regex_backend_roundtrip(trained):
     tok = Tokenizer(merges=trained.merges, pattern="gpt")
     text = "The  quick brown fox, it'll jump!  \n1234 end"
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         tok.backend = backend
         assert tok.decode(tok.encode(text)) == text, backend
 
@@ -186,7 +186,7 @@ def test_encode_batch_tpu_single_dispatch_matches_per_text():
         with open(p, "w") as f:
             f.write("\n".join(corpus))
         tok = Tokenizer.train(p, vocab_size=300, min_pair_freq=1)
-    tok.backend = "tpu"
+    tok.backend = "device"
     batch = tok.encode_batch(corpus)
     single = [tok.encode(t) for t in corpus]
     assert batch == single
@@ -207,13 +207,13 @@ def test_tpu_encode_created_pair_preemption():
                        [102, 104]],       # 'fh'      -> 258
                       np.int32)
     want = [102, 257]                     # f, h+US
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "device"):
         tok = Tokenizer(merges=merges, backend=backend)
         assert tok.encode("fhus") == want, backend
 
 
 def test_tpu_encode_rank_order_fuzz(zipf_corpus_file):
-    """Dense cpu-vs-tpu differential over real-corpus words (merge-ORDER
+    """Dense cpu-vs-device differential over real-corpus words (merge-ORDER
     coverage at realistic rank depth)."""
     import numpy as np
     from shredword_tpu import Tokenizer
@@ -227,5 +227,5 @@ def test_tpu_encode_rank_order_fuzz(zipf_corpus_file):
         s = " ".join(rng.choice(words, int(rng.integers(1, 8))))
         tok.backend = "cpu"
         want = tok.encode(s)
-        tok.backend = "tpu"
+        tok.backend = "device"
         assert tok.encode(s) == want, repr(s)

@@ -1,7 +1,8 @@
-"""Differential tests of the TPU (JAX) trainer against independent oracles.
+"""Differential tests of the device (JAX) trainer against independent
+oracles.
 
 Oracle 1: a transparent numpy implementation of greedy lex-tie-break BPE
-(written here, trivially auditable) — the TPU trainer must match it
+(written here, trivially auditable) — the device trainer must match it
 *exactly*, merge for merge.
 Oracle 2: the faithful CPU engine — merge frequency sequences must agree
 wherever the greedy choice is unique (ties may reorder, never change
@@ -75,7 +76,7 @@ def test_tpu_trainer_matches_numpy_oracle(small_setup):
 
     t = BPETrainer(target_vocab_size=300, unk_id=-1,
                    character_coverage=0.995, min_pair_freq=2,
-                   tie_break="lex", backend="tpu")
+                   tie_break="lex", backend="device")
     t.load_corpus(small_setup)
     n = t.train()
     assert n > 0
@@ -102,7 +103,7 @@ def test_tpu_trainer_matches_numpy_oracle_zipf(tmp_path):
 
     t = BPETrainer(target_vocab_size=400, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   tie_break="lex", backend="tpu")
+                   tie_break="lex", backend="device")
     t.load_corpus(str(p))
     n = t.train()
 
@@ -190,19 +191,19 @@ def test_save_formats_roundtrip(small_setup, tmp_path):
 
 
 def test_engine_giant_selector(zipf_corpus_file):
-    """engine='giant' forces the HBM-table engine at any vocab and stays
+    """engine='giant' forces the table engine at any vocab and stays
     bit-identical to the flat engine."""
     import numpy as np
     from shredword_tpu.models.bpe import BPETrainer
 
     a = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", engine="giant")
+                   backend="device", engine="giant")
     a.load_corpus(zipf_corpus_file)
     na = a.train()
     b = BPETrainer(target_vocab_size=330, unk_id=-1,
                    character_coverage=0.9995, min_pair_freq=5,
-                   backend="tpu", engine="flat")
+                   backend="device", engine="flat")
     b.load_corpus(zipf_corpus_file)
     assert b.train() == na > 0
     np.testing.assert_array_equal(a.merges, b.merges)

@@ -161,7 +161,7 @@ def test_forward_backward_numpy_fallback_matches_device():
     table = native.piece_table(words, pieces, L, K)
     wlen = np.array([len(w) for w in words], np.int32)
     c_dev, ll_dev = unigram_ops.forward_backward(
-        table, wlen, wcounts, logp, len(pieces), backend="tpu")
+        table, wlen, wcounts, logp, len(pieces), backend="device")
     c_cpu, ll_cpu = unigram_ops.forward_backward(
         table, wlen, wcounts, logp, len(pieces), backend="cpu")
     np.testing.assert_allclose(c_cpu, c_dev, rtol=1e-4, atol=1e-4)
@@ -237,7 +237,7 @@ def test_unigram_10mb_scale(tmp_path):
     batched device Viterbi matches the host DP."""
     from golden.bigcorpus_gen import make_big_corpus
 
-    path = "/tmp/shred_giant/corpus10m.txt"
+    path = str(tmp_path / "corpus10m.txt")
     make_big_corpus(path, 10)
     tr = UnigramTrainer(target_vocab_size=4000, seed_size=12000,
                         max_piece_len=8, max_word_len=16,
@@ -317,7 +317,8 @@ def test_sharded_unigram_trainer_end_to_end(tmp_path, monkeypatch):
             "a cat and a hat " * 30 + "\n") * 3
     corpus.write_text(text)
 
-    monkeypatch.setenv("SHRED_INTERPRET_OK", "1")   # single-device XLA FB
+    from shredword_tpu import device
+    monkeypatch.setattr(device, "is_accelerator", lambda: True)
     t1 = UnigramTrainer(target_vocab_size=40, seed_size=500,
                         max_word_len=16, num_em_rounds=2)
     t1.load_corpus(str(corpus))
